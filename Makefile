@@ -1,5 +1,5 @@
 # Convenience targets mirroring the reference's Makefile surface
-# (all/test/clean, Makefile:21,54-55) for the TPU-native framework.
+# (all/test/clean, Makefile:21,54-55).
 
 PY ?= python
 
@@ -11,12 +11,8 @@ native:
 test:
 	JAX_PLATFORMS=cpu $(PY) -m pytest tests/ -q
 
-bench:
-	$(PY) bench.py
-	$(PY) tools/gen_readme_perf.py
-
-perf-table:
-	$(PY) tools/gen_readme_perf.py
+smoke:
+	$(PY) chip_smoke.py
 
 golden: 
 	sh tools/build_reference.sh
@@ -27,4 +23,4 @@ clean:
 	rm -f seqalign_tpu/native/*.so
 	find . -name __pycache__ -type d -exec rm -rf {} + 2>/dev/null || true
 
-.PHONY: all native test bench golden clean
+.PHONY: all native test smoke golden clean

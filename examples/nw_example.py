@@ -22,7 +22,7 @@ print(result.result_a)
 print(result.result_b)
 print("score:", result.score)
 
-# batched alignment — the TPU-native way to align many pairs
+# batched alignment — one device program for many pairs
 pairs_a = ["acgtacgt", "tttgggcc", "gattaca"]
 pairs_b = ["acgaacgt", "ttgggcct", "gtcgacga"]
 for aln in nw.align_batch(pairs_a, pairs_b):

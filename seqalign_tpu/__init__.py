@@ -1,12 +1,11 @@
-"""seqalign_tpu — a TPU-native pairwise sequence-alignment framework.
+"""seqalign_tpu — a pairwise sequence-alignment library for accelerators.
 
 A from-scratch JAX/XLA/Pallas reimplementation of the capability surface of
 the C library noporpoise/seq-align (global Needleman-Wunsch and local
 multi-hit Smith-Waterman with affine gaps, substitution matrices, wildcards,
-constrained modes, full traceback, CLI tools), designed TPU-first: batched
-anti-diagonal wavefront DP kernels, int32 VPU arithmetic, packed direction
-codes for traceback, and pjit/shard_map data-parallel scale-out over device
-meshes.
+constrained modes, full traceback, CLI tools): batched anti-diagonal
+wavefront DP fills in int32, a GPU scores kernel, packed direction codes
+for traceback, and shard_map data-parallel scale-out over device meshes.
 """
 
 __version__ = "1.0.0"  # tracks reference SEQ_ALIGN_VERSION_STR (seq_align.h:12)

@@ -1,11 +1,10 @@
 """Batched anti-diagonal wavefront DP (Gotoh three-matrix) in pure JAX.
 
-TPU-first redesign of the reference's scalar row-major fill
-(``/root/reference/src/alignment.c:28-168``): cells on one anti-diagonal
-``d = x + y`` are independent (the recurrence only reads ``[y-1][x-1]``,
-``[y-1][x]``, ``[y][x-1]``), so the fill becomes a ``lax.scan`` over
-diagonals whose per-step work is a dense ``(batch, lanes)`` vector update —
-the batch dimension and the diagonal lanes together keep the VPU full.
+Data-parallel redesign of the reference's scalar row-major fill
+(alignment.c:28-168): cells on one anti-diagonal ``d = x + y`` are
+independent (the recurrence only reads ``[y-1][x-1]``, ``[y-1][x]``,
+``[y][x-1]``), so the fill becomes a ``lax.scan`` over diagonals whose
+per-step work is a dense ``(batch, lanes)`` vector update.
 
 Differences from the reference by design (semantics preserved exactly):
 
@@ -23,19 +22,19 @@ Differences from the reference by design (semantics preserved exactly):
   special cases (free end gaps, alignment.c:122-127,140-145; no-gaps
   exceptions, alignment.c:128-137,146-155) as lane masks.
 
-Substitution scores are delivered to the scan with zero gathers: sequences
-are alphabet-compacted on the host, the per-pair profile matrix
-``P[x, y] = sub(a[x], b[y])`` is built as two one-hot matmuls on the MXU
-(exact in f32 — exactly one nonzero per contraction), and the diagonal skew
-is a pad+flatten+reshape shear (a pure memory copy: padding each row of
-``P^T`` to width LA+LB+2 and re-viewing rows at stride LA+LB+1 lands
-``P[d-y, y]`` at ``[y, d]``).  The scan body is then pure int32 arithmetic
-with no lookups.
+Substitution scores are delivered to the scan precomputed: sequences are
+alphabet-compacted on the host, the per-pair profile matrix
+``P[x, y] = sub(a[x], b[y])`` is one int32 gather from the compact table,
+and the diagonal skew is a pad+flatten+reshape shear (a pure memory copy:
+padding each row of ``P^T`` to width LA+LB+2 and re-viewing rows at stride
+LA+LB+1 lands ``P[d-y, y]`` at ``[y, d]``).  The scan body is then pure
+int32 arithmetic with no lookups.
 """
 
 from __future__ import annotations
 
 import functools
+import os
 from typing import NamedTuple, Optional
 
 import jax
@@ -44,7 +43,20 @@ import numpy as np
 
 from ..scoring.config import ScoringConfig, UnknownCharPair, encode
 
+# Persistent compile cache.  JAX reads JAX_COMPILATION_CACHE_DIR itself;
+# without it, a fixed directory in the checkout, so repeated runs of the
+# same bucket shapes skip compilation.  Every device path imports this
+# module before its first compile.
+COMPILE_CACHE_DIR = os.environ.get("JAX_COMPILATION_CACHE_DIR") or \
+    os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__)))), ".jax_cache")
+if "JAX_COMPILATION_CACHE_DIR" not in os.environ:
+    jax.config.update("jax_compilation_cache_dir", COMPILE_CACHE_DIR)
+
 MATCH, GAP_A, GAP_B, DIR_FAIL = 0, 1, 2, 3
+# Pad substitution score for poisoned pad positions (parallel/wavefront_sp):
+# pad-region MATCH values clamp <= 0, so an SW best needs no lane masks.
+POISON = -(1 << 22)
 
 
 class DPOutputs(NamedTuple):
@@ -71,27 +83,15 @@ def _max3(a, b, c):
 
 
 def _profile(codes_a, codes_b, tableK, out_dtype):
-    """P[b, x, y] = tableK[codes_a[b, x], codes_b[b, y]] via one-hot matmuls
-    (MXU).  Exact: each f32 contraction has exactly one nonzero term, and
-    table magnitudes are host-checked to be < 2^24."""
-    Ka, Kb = tableK.shape
-    oa = (codes_a[..., None] == jnp.arange(Ka, dtype=codes_a.dtype)).astype(
-        jnp.float32
-    )  # (B, LA, Ka)
-    ob = (codes_b[..., None] == jnp.arange(Kb, dtype=codes_b.dtype)).astype(
-        jnp.float32
-    )  # (B, LB, Kb)
-    pa = jax.lax.dot_general(
-        oa, tableK.astype(jnp.float32),
-        dimension_numbers=(((2,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32,
-    )  # (B, LA, Kb)
-    p = jax.lax.dot_general(
-        pa, ob,
-        dimension_numbers=(((2,), (2,)), ((0,), (0,))),
-        preferred_element_type=jnp.float32,
-    )  # (B, LA, LB)
-    return p.astype(out_dtype)
+    """P[b, x, y] = tableK[codes_a[b, x], codes_b[b, y]] as one integer
+    gather from the flattened compact table: exact for every int32 score
+    (a float matmul formulation would round on GPUs that run f32 products
+    in TF32, which keeps 11 bits)."""
+    Kb = tableK.shape[1]
+    idx = codes_a.astype(jnp.int32)[:, :, None] * Kb + \
+        codes_b.astype(jnp.int32)[:, None, :]
+    return jnp.take(tableK.reshape(-1).astype(out_dtype), idx, axis=0,
+                    mode="clip")
 
 
 def _shear(p):
@@ -174,7 +174,7 @@ def dp_fill(
     yv = jnp.arange(LBp, dtype=i32)  # lane -> y coordinate
 
     # ---- skewed substitution scores: ss[r, :, y] = sub(a[x-1], b[y-1]),
-    # x = (r+2) - y.  MXU profile + reshape shear; no gathers anywhere.
+    # x = (r+2) - y.  Table gather + reshape shear.
     def skewed(table):
         p = _profile(a, b, table, i32)  # (B, LA, LB)
         sh_ = _shear(p)[:, :, :D]  # (B, LB, D): [b, y-1, r]
@@ -445,8 +445,7 @@ def pad_width(n: int) -> int:
     """Padded bucket width for a sequence side: pow2 up to 4096 (bounds
     the compiled-shape count at short L), then multiples of 1024 (the
     1-10kb regime: pow2 buckets would pad a 4097-long side to 8192 — 2x
-    wasted cells; 1024-granular buckets waste <= 25% and the wide-lane
-    v2 kernel takes any multiple-of-128 width)."""
+    wasted cells; 1024-granular buckets waste <= 25%)."""
     if n <= 4096:
         return _next_pow2(n)
     return -(-n // 1024) * 1024
@@ -466,10 +465,9 @@ def pad_batch(seqs, pad_to: Optional[int] = None,
     optionally translating every byte through ``fold`` in the same pass.
 
     Rides the native packer (io/packer.py: one GIL-released translate-copy
-    per row, ~0.2us/pair at L=512) with a vectorized numpy fallback.  Host
-    pack is the per-host serial cost that bounds chips-per-host in
-    SCALING.json — a chip FILLS a 512x512 pair in ~2.5us, so this must
-    stay well under 1us/pair for one host to feed a 4-8 chip v5e host."""
+    per row) with a vectorized numpy fallback.  Host pack is serial
+    per-host work that every device fill waits on, so it must stay far
+    cheaper per pair than the fill."""
     n = len(seqs)
     if n == 0:
         return (np.zeros((0, max(1, pad_to or 1)), np.uint8),
@@ -512,11 +510,10 @@ def pad_batch(seqs, pad_to: Optional[int] = None,
 def pack_inputs_mm(sc: ScoringConfig, seqs_a, seqs_b,
                    pad_a: Optional[int] = None,
                    pad_b: Optional[int] = None):
-    """One-pass pack for the inline match/mismatch kernels: pad + fold each
-    side in a single native translate-copy (equivalent to
+    """One-pass pack for the equality-scoring kernel: pad + fold each side
+    in a single native translate-copy (equivalent to
     ``compact_inputs_mm(sc, *pad_batch(...))`` but without the second
-    full-array gather — the production host-pack path measured by
-    tools/bench_scaling.py).  Returns (ac, bc, na, nb)."""
+    full-array gather).  Returns (ac, bc, na, nb)."""
     fold = sc.luts()[0]
     ac, na = pad_batch(seqs_a, pad_a, fold)
     bc, nb = pad_batch(seqs_b, pad_b, fold)
@@ -571,21 +568,18 @@ def mm_eligible(sc: ScoringConfig) -> bool:
 
 def compact_inputs_mm(sc: ScoringConfig, a_bytes: np.ndarray,
                       b_bytes: np.ndarray):
-    """Shared-alphabet fold-canonical codes for the inline match/mismatch
+    """Shared-alphabet fold-canonical codes for the equality-scoring
     kernel: both sequences map through ONE union alphabet of case-folded
     bytes, so ``code_a == code_b`` <=> the pair scores ``match``.  (The
     regular :func:`compact_inputs` compacts a and b independently — its
     codes must never be compared across sequences.)  Only valid for
     :func:`mm_eligible` configs."""
-    # The only contract consumers rely on is code_a == code_b <=> match
-    # (and codes << PADA = 2^20, the staging pad sentinel): the folded
-    # bytes THEMSELVES satisfy both, so no per-batch alphabet scan or
-    # rank remapping is needed at all — one uint8 LUT gather per side.
-    # (Kernel stagings cast codes to their compute dtype on device;
-    # values <= 255 are exact in every mode including f32.)  The gather
-    # rides the native fold (io/packer.py) — callers that still hold the
-    # raw sequence lists should prefer :func:`pack_inputs_mm`, which folds
-    # during the pack copy itself (tools/bench_scaling.py decomposition).
+    # The only contract consumers rely on is code_a == code_b <=> match:
+    # the folded bytes THEMSELVES satisfy it, so no per-batch alphabet
+    # scan or rank remapping is needed at all — one uint8 LUT gather per
+    # side.  The gather rides the native fold (io/packer.py) — callers
+    # that still hold the raw sequence lists should prefer
+    # :func:`pack_inputs_mm`, which folds during the pack copy itself.
     from ..io import packer
 
     fold = sc.luts()[0]
@@ -809,7 +803,7 @@ def _sw_cand_topk(mmat, na, nb, min_s, x_off, k):
     key = jnp.where(valid, mmat, jnp.int32(-(2**31))).reshape(B, -1)
     vals, idx = jax.lax.top_k(key, k)
     # (y, x) return separately: composing flat = y*(na+1)+x on device would
-    # wrap int32 for giant pairs (TPU has no vector int64); host composes
+    # wrap int32 for giant pairs (x64 is off); the host composes
     ys = (idx % LBp).astype(jnp.int32)
     xb = jnp.broadcast_to(x, mmat.shape).reshape(B, -1)
     xs = jnp.take_along_axis(xb, idx, axis=1)

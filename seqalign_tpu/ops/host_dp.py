@@ -1,7 +1,7 @@
 """Vectorized numpy host DP — the framework's low-latency host path.
 
-The device wavefront kernels (``ops/dp.py``, ``ops/pallas_dp.py``) win on
-batched throughput, but a single small CLI pair pays JAX import + backend
+The device fills (``ops/dp.py``, ``ops/scores_gpu.py``) win on batched
+throughput, but a single small CLI pair pays JAX import + backend
 init + XLA compile (seconds) for microseconds of arithmetic — and the
 reference binary answers in ~1ms.  A production framework needs both: this
 module fills the same reference-exact matrices (alignment.c:28-168) with

@@ -1,14 +1,15 @@
-"""Multi-host (DCN) execution: ``jax.distributed`` wiring, per-host input
+"""Multi-process execution: ``jax.distributed`` wiring, per-process input
 shards, and result re-assembly.
 
-The reference is single-process/single-thread (SURVEY §2.4) — multi-host
-scale-out is new capability, built the TPU way: pairwise alignment is
-embarrassingly parallel over pairs, so each host reads a round-robin shard
-of the input pairs (``io.seqio.read_pairs_sharded``), fills them on its own
-local devices, and only the O(B) result vector is exchanged with a
-process-level allgather.  No collective ever crosses DCN inside the DP fill
-itself; ICI-scale sharding of one batch lives in ``parallel.engine`` and
-sequence-parallel fills of one giant pair in ``parallel.wavefront_sp``.
+The reference is single-process/single-thread (SURVEY §2.4) — multi-process
+scale-out is new capability: pairwise alignment is embarrassingly parallel
+over pairs, so each process (one per device, or one per host) reads a
+round-robin shard of the input pairs (``io.seqio.read_pairs_sharded``),
+fills them on its own local devices, and only the O(B) result vector is
+exchanged with a process-level allgather.  No collective runs inside the
+DP fill itself; sharding one batch over a mesh lives in
+``parallel.engine`` and sequence-parallel fills of one giant pair in
+``parallel.wavefront_sp``.
 
 Entry points:
 
@@ -20,8 +21,8 @@ Entry points:
   shard; returns the complete, pair-ordered score vector on every host.
 
 Validated by a real 2-process CPU integration test
-(tests/test_distributed.py) — the same code path a multi-host TPU pod
-slice runs, minus the accelerator.
+(tests/test_distributed.py) and on four GPUs with one process per card
+(``chip_smoke.py --four``).
 """
 
 from __future__ import annotations

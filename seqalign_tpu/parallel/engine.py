@@ -1,13 +1,14 @@
-"""Multi-chip scale-out: data-parallel pair-batch sharding over a device mesh.
+"""Multi-device scale-out: data-parallel pair-batch sharding over a mesh.
 
 The reference is single-process/single-thread (SURVEY.md §2.4) — distributed
-execution is new capability, built the TPU way: a 1-D ``jax.sharding.Mesh``
-over all chips (ICI within a slice, DCN across hosts), the pair batch sharded
-over the ``pairs`` axis with ``shard_map``, scoring LUTs replicated (they are
-<=256KB), and results returned still sharded so the host gathers only what it
-reads.  No collectives are needed in the forward fill — pairwise alignment is
-embarrassingly parallel over pairs, which is exactly why the mesh axis rides
-the batch dimension.
+execution is new capability: a 1-D ``jax.sharding.Mesh`` over all devices,
+the pair batch sharded over the ``pairs`` axis with ``shard_map``, scoring
+LUTs replicated (they are <=256KB), and results returned still sharded so
+the host gathers only what it reads.  No collectives are needed in the
+forward fill — pairwise alignment is embarrassingly parallel over pairs,
+which is exactly why the mesh axis rides the batch dimension.  Each shard
+runs the single-device fill the route gate picks
+(``aligners._scores_route``): the Triton scores kernel or the XLA scan.
 """
 
 from __future__ import annotations
@@ -18,15 +19,11 @@ from typing import Optional
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+from jax import shard_map
+from jax.sharding import Mesh, PartitionSpec as P
 
 from ..ops import dp
 from ..scoring.config import ScoringConfig
-
-try:
-    from jax import shard_map  # type: ignore  # jax >= 0.8
-except ImportError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map  # type: ignore
 
 
 def make_mesh(n_devices: Optional[int] = None, axis: str = "pairs") -> Mesh:
@@ -177,16 +174,15 @@ def sharded_align_batch(sc: ScoringConfig, seqs_a, seqs_b, *, is_sw: bool,
         b = np.pad(b, ((0, rem), (0, 0)))
         na = np.pad(na, (0, rem), constant_values=1)
         nb = np.pad(nb, (0, rem), constant_values=1)
-    v2 = _v2_align_sharded(sc, seqs_a, seqs_b, a, b, na, nb, n,
-                           is_sw=is_sw, mesh=mesh)
-    if v2 is not None:
-        return v2
     ac, bc, subK, imK = dp.compact_inputs(sc, a, b)
     fn = make_sharded_fill_fn(sc, mesh, is_sw=is_sw, emit_m=is_sw)
     dirs, mmat, corner, best = fn(
         jnp.asarray(ac), jnp.asarray(bc), jnp.asarray(na), jnp.asarray(nb),
         jnp.asarray(subK), jnp.asarray(imK),
     )
+    from ..aligners import _note_dispatch
+
+    _note_dispatch("sharded_dirs_xla")
     dirs = np.asarray(dirs)
     corner = np.asarray(corner)
     if is_sw:
@@ -216,30 +212,65 @@ def _score_dispatch(sc: ScoringConfig, seqs_a, seqs_b, *, is_sw: bool,
     (device_scores, n).  JAX dispatch is asynchronous, so callers can pack
     and dispatch the next batch while this one fills (the double-buffered
     pipeline in :func:`sharded_score_stream`)."""
+    from ..aligners import _note_dispatch, _scores_route
+
     n = len(seqs_a)
     nd = mesh.devices.size
     rem = (-n) % nd
     if rem:
         # filler pairs pad the batch to a mesh multiple; their recorded
-        # length is 1 (not 0) to keep ragged batches inside the v2 fast
-        # path's min(na, nb) >= 1 gate (results are sliced to n).  The
-        # filler rows pack as zero bytes either way.
+        # length is 1 (the kernel route needs every length >= 1; results
+        # are sliced to n).  The filler rows pack as zero bytes.
         seqs_a = list(seqs_a) + [""] * rem
         seqs_b = list(seqs_b) + [""] * rem
-    v2 = _v2_scores_sharded(sc, seqs_a, seqs_b, n, is_sw=is_sw, mesh=mesh)
-    if v2 is not None:
-        return v2, n
     a, na = dp.pad_batch(seqs_a)
     b, nb = dp.pad_batch(seqs_b)
-    if rem:
-        na[n:] = 1
-        nb[n:] = 1
-    ac, bc, subK, imK = dp.compact_inputs(sc, a, b)
-    fn = make_sharded_score_fn(sc, mesh, is_sw=is_sw)
-    scores = fn(jnp.asarray(ac), jnp.asarray(bc),
-                jnp.asarray(na), jnp.asarray(nb),
-                jnp.asarray(subK), jnp.asarray(imK))
+    na[n:] = 1
+    nb[n:] = 1
+    route = "xla"
+    if min(na.min(initial=1), nb.min(initial=1)) >= 1:
+        route = _scores_route(sc, is_sw, a.shape[1], b.shape[1])
+    if route != "xla":
+        ac, bc = dp.compact_inputs_mm(sc, a, b)
+        fn = make_sharded_kernel_fn(sc, mesh, is_sw=is_sw,
+                                    interpret=route == "interpret")
+        scores = fn(jnp.asarray(ac), jnp.asarray(bc), jnp.asarray(na),
+                    jnp.asarray(nb))
+    else:
+        ac, bc, subK, imK = dp.compact_inputs(sc, a, b)
+        fn = make_sharded_score_fn(sc, mesh, is_sw=is_sw)
+        scores = fn(jnp.asarray(ac), jnp.asarray(bc),
+                    jnp.asarray(na), jnp.asarray(nb),
+                    jnp.asarray(subK), jnp.asarray(imK))
+    _note_dispatch("sharded_scores_" + ("xla" if route == "xla"
+                                        else "kernel"))
     return scores, n
+
+
+def make_sharded_kernel_fn(sc: ScoringConfig, mesh: Mesh, *, is_sw: bool,
+                           interpret: bool, axis: str = "pairs"):
+    """fn(a_codes, b_codes, na, nb) -> (B,) int32 scores with each shard
+    of the pair batch filled by the Triton scores kernel
+    (``ops.scores_gpu``; codes from ``dp.compact_inputs_mm``).  Memoised
+    like :func:`make_sharded_score_fn`."""
+    from ..ops.scores_gpu import scores_gpu
+
+    key = ("kernel", _sc_key(sc), mesh, is_sw, interpret, axis)
+
+    def build():
+        def local(a, b, na, nb):
+            return scores_gpu(
+                a, b, na, nb, is_sw=is_sw, nsg=sc.no_start_gap_penalty,
+                neg=sc.no_end_gap_penalty, match=sc.match,
+                mismatch=sc.mismatch, go=sc.gap_open, ge=sc.gap_extend,
+                mn=sc.dp_floor(is_sw), interpret=interpret)
+
+        # pallas_call outputs carry no varying-mesh-axes annotation, so
+        # the vma check is off (every output is per-shard anyway)
+        return jax.jit(shard_map(local, mesh=mesh, in_specs=(P(axis),) * 4,
+                                 out_specs=P(axis), check_vma=False))
+
+    return _memo(key, build, keep=sc.luts())
 
 
 def sharded_score_stream(sc: ScoringConfig, batches, *, is_sw: bool,
@@ -253,8 +284,8 @@ def sharded_score_stream(sc: ScoringConfig, batches, *, is_sw: bool,
     asynchronous and the result fetch (`np.asarray`) happens only once
     ``depth`` batches are in flight.  With host pack ~O(bytes) and the
     fill ~O(cells), the device never starves for realistic L — the basis
-    of the scaling extrapolation in SCALING.json (the reference streams
-    pairs strictly serially: alignment_cmdline.c:611-622)."""
+    of overlapping host and device work (the reference streams pairs
+    strictly serially: alignment_cmdline.c:611-622)."""
     import collections
 
     mesh = mesh if mesh is not None else make_mesh()
@@ -268,193 +299,3 @@ def sharded_score_stream(sc: ScoringConfig, batches, *, is_sw: bool,
     while inflight:
         dev, n = inflight.popleft()
         yield np.asarray(dev)[:n]
-
-
-def _v2_scores_sharded(sc, seqs_a, seqs_b, n_real, *, is_sw, mesh):
-    """Scores-only sharded dispatch through the chained v2 kernel; None
-    when ineligible (the XLA shard path runs instead).  ``seqs_a``/
-    ``seqs_b`` may carry empty filler pairs past ``n_real`` (mesh-multiple
-    padding) — fillers count as length 1 for the eligibility gates."""
-    from ..aligners import _note_dispatch, _v2_scores_eligible
-    from ..ops.pallas_dp2 import pallas_scores2
-
-    na = dp.seq_lens(seqs_a)
-    nb = dp.seq_lens(seqs_b)
-    na[n_real:] = 1
-    nb[n_real:] = 1
-    if min(na.min(initial=1), nb.min(initial=1)) < 1:
-        return None
-    la = max(128, dp._next_pow2(max(1, int(na.max(initial=0)))))
-    lb = max(128, dp._next_pow2(max(1, int(nb.max(initial=0)))))
-    if lb > 4096:
-        return None
-    inline = dp.mm_eligible(sc)
-    if inline:
-        # one-pass native pack+fold at the final padded width — the
-        # production host-pack cost (SCALING.json stage decomposition)
-        ac, bc, _, _ = dp.pack_inputs_mm(sc, seqs_a, seqs_b, la, lb)
-        subK = np.zeros((8, 8), np.int32)
-    else:
-        a, _ = dp.pad_batch(seqs_a, la)
-        b, _ = dp.pad_batch(seqs_b, lb)
-        ac, bc, subK, _ = dp.compact_inputs(sc, a, b)
-    lut_np = _v2_scores_eligible(sc, inline, None if inline else subK,
-                                 la, lb, is_sw=is_sw)
-    if lut_np is None:
-        return None
-    go = np.int32(sc.gap_open)
-    ge = np.int32(sc.gap_extend)
-    interp = _interp()
-    nsg = sc.no_start_gap_penalty
-    neg = sc.no_end_gap_penalty
-
-    def local_fill(acs, bcs, nas, nbs, subKs):
-        return pallas_scores2(
-            acs, bcs, nas, nbs, go, ge, is_sw=is_sw,
-            match=np.int32(sc.match), mismatch=np.int32(sc.mismatch),
-            subK=subKs if lut_np > 0 else None, interpret=interp,
-            nsg=nsg, neg=neg, nga=sc.no_gaps_in_a, ngb=sc.no_gaps_in_b,
-            nmm=sc.no_mismatches, lut_np=lut_np)
-
-    axis = mesh.axis_names[0]
-    key = ("scores2", _sc_key(sc), mesh, is_sw, int(lut_np), interp)
-    fn = _memo(key, lambda: jax.jit(shard_map(
-        local_fill, mesh=mesh,
-        in_specs=(P(axis), P(axis), P(axis), P(axis), P()),
-        out_specs=P(axis), check_vma=False,
-    )), keep=sc.luts())
-    out = fn(jnp.asarray(ac), jnp.asarray(bc),
-             jnp.asarray(na), jnp.asarray(nb),
-             jnp.asarray(subK))
-    _note_dispatch("scores2_sharded")
-    return out  # device array — callers fetch (np.asarray) when needed
-
-
-def _interp() -> bool:
-    return jax.default_backend() == "cpu"
-
-
-def make_sharded_fill_fn2(sc: ScoringConfig, mesh: Mesh, *, is_sw: bool,
-                          lut_np: int, axis: str = "pairs",
-                          unroll: int = 16):
-    """Sharded full-traceback fill through the round-3 chained Pallas
-    kernel (ops/pallas_dp2) — each device runs the single-chip kernel on
-    its pair shard, so multi-chip traceback batches run at per-chip
-    kernel speed instead of the XLA scan's (~2x measured on the chip;
-    VERDICT round-2 weak item 5).
-
-    fn(ac, bc, na, nb, subK) -> (dirs, m, corner): dirs/m in the v2
-    lane-packed layout with shards concatenated on axis 0 (per-pair
-    extraction via ``pallas_dp2.unpack_pair_plane2`` with the SHARD-LOCAL
-    geometry), corner (B, 3).  Caller gates eligibility with
-    ``aligners._v2_scores_eligible``.  Memoised on (config value, mesh)
-    so repeat batches reuse the trace."""
-    key = ("fill2", _sc_key(sc), mesh, is_sw, int(lut_np), axis, unroll)
-    return _memo(key, lambda: _build_sharded_fill_fn2(
-        sc, mesh, is_sw=is_sw, lut_np=lut_np, axis=axis, unroll=unroll),
-        keep=sc.luts())
-
-
-def _build_sharded_fill_fn2(sc: ScoringConfig, mesh: Mesh, *, is_sw: bool,
-                            lut_np: int, axis: str, unroll: int):
-    from ..ops.pallas_dp2 import pallas_fill_dirs2
-
-    go = np.int32(sc.gap_open)
-    ge = np.int32(sc.gap_extend)
-    interp = _interp()
-    nsg = sc.no_start_gap_penalty
-    neg = sc.no_end_gap_penalty
-
-    def local_fill(ac, bc, na, nb, subK):
-        dirs, m, corner = pallas_fill_dirs2(
-            ac, bc, na, nb, go, ge, is_sw=is_sw, emit_m=is_sw,
-            match=np.int32(sc.match), mismatch=np.int32(sc.mismatch),
-            subK=subK if lut_np > 0 else None, interpret=interp,
-            unroll=unroll, nsg=nsg, neg=neg, nga=sc.no_gaps_in_a,
-            ngb=sc.no_gaps_in_b, nmm=sc.no_mismatches, lut_np=lut_np,
-        )
-        if m is None:
-            m = jnp.zeros((1,), jnp.int32)
-        if corner is None:
-            corner = jnp.zeros((ac.shape[0], 3), jnp.int32)
-        return dirs, m, corner
-
-    sharded = shard_map(
-        local_fill,
-        mesh=mesh,
-        in_specs=(P(axis), P(axis), P(axis), P(axis), P()),
-        out_specs=(P(axis), P(axis) if is_sw else P(), P(axis)),
-        # pallas_call can't annotate varying-mesh-axes metadata on its
-        # outputs yet — skip the vma check (outputs are per-shard anyway)
-        check_vma=False,
-    )
-    return jax.jit(sharded)
-
-
-def _v2_align_sharded(sc, seqs_a, seqs_b, a, b, na, nb, n, *, is_sw, mesh):
-    """v2 (chained Pallas) path for :func:`sharded_align_batch`: per-shard
-    single-chip kernel speed.  Returns None when ineligible (mode gates,
-    f32 bound, width) so the XLA shard path runs instead."""
-    from ..aligners import _v2_scores_eligible
-    from ..ops.pallas_dp2 import chain_geometry, unpack_pair_plane2
-    from ..ops.traceback import SwHitIterator, nw_traceback
-
-    if min(na.min(initial=1), nb.min(initial=1)) < 1:
-        return None
-    la = max(128, dp._next_pow2(a.shape[1]))
-    lb = max(128, dp._next_pow2(b.shape[1]))
-    if lb > 2048:
-        return None
-    inline = dp.mm_eligible(sc)
-    a = np.pad(a, ((0, 0), (0, la - a.shape[1])))
-    b = np.pad(b, ((0, 0), (0, lb - b.shape[1])))
-    if inline:
-        ac, bc = dp.compact_inputs_mm(sc, a, b)
-        subK = np.zeros((8, 8), np.int32)
-    else:
-        ac, bc, subK, _ = dp.compact_inputs(sc, a, b)
-    lut_np = _v2_scores_eligible(sc, inline, None if inline else subK,
-                                 la, lb, is_sw=is_sw)
-    if lut_np is None:
-        return None
-    nd = mesh.devices.size
-    Bl = ac.shape[0] // nd  # per-shard batch (already padded to nd)
-    unroll = 16  # round-4 retune: K=16 best at every measured length
-    geo = chain_geometry(Bl, la, lb, K=unroll, state_bytes=140,
-                         lut_np=lut_np)
-    Bp_l = geo["nB"] * geo["BS"] * geo["P"] * geo["C"]
-    fn = make_sharded_fill_fn2(sc, mesh, is_sw=is_sw, lut_np=lut_np,
-                               unroll=unroll)
-    dirs, m, corner = fn(jnp.asarray(ac), jnp.asarray(bc),
-                         jnp.asarray(na), jnp.asarray(nb),
-                         jnp.asarray(subK))
-    dirs_np = np.asarray(dirs)
-    from ..aligners import _note_dispatch
-
-    _note_dispatch("dirs2_sharded")
-
-    def planes(j):
-        # shard sh's rows sit at [sh*geo[nB], (sh+1)*geo[nB]) of the
-        # gathered planes — shift the pair index by whole padded shard
-        # batches Bp_l
-        sh, jl = divmod(j, Bl)
-        return unpack_pair_plane2(dirs_np, sh * Bp_l + jl, geo, la, lb)
-
-    if is_sw:
-        mnp = np.asarray(m)
-
-        def m_for(j):
-            sh, jl = divmod(j, Bl)
-            return unpack_pair_plane2(mnp, sh * Bp_l + jl, geo, la, lb)
-
-        return [
-            SwHitIterator(sc, seqs_a[j], seqs_b[j], int(na[j]),
-                          int(nb[j]), planes(j), m_for(j))
-            for j in range(n)
-        ]
-    corner_np = np.asarray(corner)
-    return [
-        nw_traceback(seqs_a[j], seqs_b[j], na[j], nb[j], planes(j),
-                     corner_np[j])
-        for j in range(n)
-    ]

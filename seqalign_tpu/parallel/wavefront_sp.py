@@ -1,5 +1,5 @@
 """Sequence-parallel wavefront: one (giant) pair's DP lanes sharded across
-the device mesh, with per-diagonal halo exchange over ICI.
+the device mesh, with per-diagonal halo exchange between devices.
 
 This is the context-parallel analog from SURVEY §2.4/§5: the anti-diagonal
 state vectors (H, E, F over b-positions) are split across an axis of the
@@ -9,7 +9,7 @@ the y-1 shift needs.  Row-0 boundary values are injected on the device that
 owns lane 0; the NW corner is recovered with a cross-device ``pmax``.
 
 Scores-only, default flags (the H/E/F reduction of alignment.c:89-167 — see
-ops/pallas_dp.py for its exactness argument).  Complements the pair-batch
+ops/scores_gpu.py for its exactness argument).  Complements the pair-batch
 data parallelism in ``engine.py``: use THIS when single pairs are too long
 for one chip's memory/compute, use pair-batch sharding for throughput.
 """
@@ -23,14 +23,10 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, PartitionSpec as P
 
-from ..ops.dp import _profile, _shear, compact_inputs, pad_batch
-from ..ops.pallas_dp import POISON
-from ..scoring.config import ScoringConfig
+from jax import shard_map
 
-try:
-    from jax import shard_map  # type: ignore  # jax >= 0.8
-except ImportError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map  # type: ignore
+from ..ops.dp import POISON, _profile, _shear, compact_inputs, pad_batch
+from ..scoring.config import ScoringConfig
 
 
 def _local_fill(ss, na, nb, go, ge, mn, *, axis, LBshard, D, is_sw):
@@ -111,7 +107,7 @@ def _local_fill(ss, na, nb, go, ge, mn, *, axis, LBshard, D, is_sw):
 def sp_scores(sc: ScoringConfig, seqs_a, seqs_b, mesh: Mesh,
               axis: str = "seq", *, is_sw: bool = False) -> np.ndarray:
     """Optimal scores with the DP lane axis sharded over ``mesh[axis]``.
-    Default-flags configs with gap_open <= 0 (like the Pallas fast path);
+    Default-flags configs with gap_open <= 0 (like the GPU scores kernel);
     anything else routes through the batch engine (identical results,
     pair-batch sharding instead of lane sharding)."""
     if sc.gap_open > 0 or (
@@ -136,7 +132,7 @@ def sp_scores(sc: ScoringConfig, seqs_a, seqs_b, mesh: Mesh,
 
     @jax.jit
     def prep(ac, bc, na, nb, subK):
-        # poison pad positions (see ops/pallas_dp.py) so pad-region MATCH
+        # poison pad positions (dp.POISON) so pad-region MATCH
         # values clamp <= 0 and the SW best needs no validity masks
         Ka, Kb = subK.shape
         ac = jnp.where(

@@ -1,4 +1,4 @@
-"""Scoring model: the TPU-native equivalent of the reference's ``scoring_t``.
+"""Scoring model: this package's equivalent of the reference's ``scoring_t``.
 
 The reference (``/root/reference/src/alignment_scoring.{h,c}``) resolves a
 character pair's substitution score *per DP cell* with a chain of branchy
@@ -7,7 +7,7 @@ lookups (``scoring_lookup``, alignment_scoring.c:133-182):
     case-fold -> no_mismatches short-circuit -> swap table -> wildcards
     (min rule) -> match/mismatch -> hard error
 
-That is hostile to a TPU kernel, so :class:`ScoringConfig` compiles the whole
+That is hostile to a data-parallel kernel, so :class:`ScoringConfig` compiles the whole
 chain once into dense 256x256 lookup tables (substitution score, is-match,
 validity).  Encoded sequences index these tables; the hot DP kernel sees only
 int32 gathers/selects and never branches.
@@ -163,7 +163,8 @@ class ScoringConfig:
         ``max_penalty`` — which replicate the reference's frozen
         scoring_init accumulation for NEG_INF byte parity (alignment.c:41;
         CLI flag mutations never recompute them) — these are real bounds,
-        for the f32/int16 kernel-exactness gates (pallas_dp.f32_safe)."""
+        for the int32 exactness gates (:meth:`sentinel_wrap_risk`,
+        ``ops.scores_gpu.eligible``)."""
         mn = min(self.match, self.mismatch,
                  self.gap_open + self.gap_extend, self.gap_extend)
         mx = max(self.match, self.mismatch,

@@ -1,4 +1,4 @@
-"""Substitution-score file loaders — the TPU framework's equivalent of
+"""Substitution-score file loaders — this package's equivalent of
 ``alignment_scoring_load.c`` (reference C5).
 
 Two formats, both gzip-transparent (the reference reads via zlib ``gzFile``,

@@ -78,17 +78,17 @@ _DEVICE_FLAGSETS = [
 @pytest.mark.parametrize("flags", _DEVICE_FLAGSETS,
                          ids=lambda f: "+".join(f) or "dflt")
 def test_fuzz_device_pallas_matches_host(monkeypatch, flags):
-    """Randomized batches through the FORCED device path (Pallas interpret)
-    across the full mode space — equality, wildcard-LUT, and swap-LUT
+    """Randomized batches through the FORCED device path (the scores
+    kernel in the Pallas interpreter where eligible, the XLA fill
+    elsewhere) across the full mode space — equality, wildcard and swap
     scoring composed with the constrained/free-gap flags — must reproduce
-    the host reference exactly (alignments and SW hit streams)."""
+    the host reference exactly (scores, alignments and SW hit streams)."""
     from seqalign_tpu.ops import host_dp
 
     import os
 
     monkeypatch.setenv("SEQALIGN_FORCE", "device")
     monkeypatch.setenv("SEQALIGN_PALLAS", "interpret")
-    monkeypatch.setenv("SEQALIGN_PALLAS_FLOOR", "16")
     rng = np.random.default_rng(7 + hash(tuple(sorted(flags))) % 2**31)
     # soak runs dial this up (SEQALIGN_FUZZ_TRIALS=20 ...); CI stays fast
     for trial in range(int(os.environ.get("SEQALIGN_FUZZ_TRIALS", "2"))):
@@ -115,6 +115,8 @@ def test_fuzz_device_pallas_matches_host(monkeypatch, flags):
             got = NeedlemanWunsch(sc).align_batch(sa, sb)
             want = [host_dp.nw_align(sc, x, y) for x, y in zip(sa, sb)]
             assert got == want, (flags, trial, sa, sb)
+            assert list(NeedlemanWunsch(sc).score_batch(sa, sb)) == \
+                [w.score for w in want], (flags, trial, sa, sb)
         for it, x, y in zip(SmithWaterman(sc).align_batch(sa, sb), sa, sb):
             hit_got = [(h.score, h.pos_a, h.pos_b, h.result_a, h.result_b)
                        for h in it]
